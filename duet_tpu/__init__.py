@@ -1,13 +1,14 @@
-"""duet_tpu — a TPU-native structural-variant calling & phasing framework.
+"""duet_tpu — an accelerator-backed structural-variant calling & phasing
+framework.
 
 A from-scratch re-design of the capabilities of yekaizhou/duet
 (SNP-assisted SV calling and phasing for ONT long reads) as a
-self-contained, TPU-first framework:
+self-contained framework whose hot stages run as JAX device kernels:
 
 - ``duet_tpu.io``       — binary codecs: BGZF, BAM, FASTA/FAI, VCF
                           (replaces samtools/bcftools/tabix text round-trips,
                           reference: src/duet/read_file.py, write_file.py)
-- ``duet_tpu.ops``      — JAX/Pallas device kernels: pileup counting,
+- ``duet_tpu.ops``      — JAX device kernels: pileup counting,
                           haplotype scoring, SV-signature clustering,
                           fused phase-decision
 - ``duet_tpu.models``   — the pipeline stages ("model families"): SNP caller,
@@ -21,61 +22,3 @@ self-contained, TPU-first framework:
 """
 
 __version__ = "0.1.0"
-
-
-def _tune_hugepages() -> None:
-    """Disable numpy's madvise(MADV_HUGEPAGE) on hosts where the kernel
-    zeroes 2 MB pages pathologically slowly.
-
-    numpy self-advises transparent huge pages for every allocation
-    >= 4 MB (env NUMPY_MADVISE_HUGEPAGE, read at numpy import).  On
-    healthy hardware that is a win (512x fewer faults, streaming zeroing);
-    on this repo's VM class the synchronous 2 MB zeroing runs at
-    ~100-300 MB/s and first-touch of a 2 GB column measured 3-11x SLOWER
-    with huge pages (round-5 measurement: 14-26 s vs 1.3-5.7 s) — and the
-    ingest stage first-touches ~5 GB per production contig.  Probe with
-    the stdlib mmap BEFORE numpy is imported: touch 16 MB both ways; only
-    when huge-page touch loses by >2x is numpy told to keep 4 KB pages.
-    Respects an explicit NUMPY_MADVISE_HUGEPAGE from the environment."""
-    import os
-    import sys
-
-    if "NUMPY_MADVISE_HUGEPAGE" in os.environ or "numpy" in sys.modules \
-            or not sys.platform.startswith("linux"):
-        return
-    try:
-        import mmap
-        import time
-
-        n = 64 * 1024 * 1024
-
-        def touch(advise: bool) -> float:
-            m = mmap.mmap(-1, n, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS)
-            try:
-                if advise:
-                    m.madvise(mmap.MADV_HUGEPAGE)
-                t0 = time.perf_counter()
-                for off in range(0, n, 4096):
-                    m[off] = 1
-                return time.perf_counter() - t0
-            finally:
-                m.close()
-
-        # one 64 MB trial each way, PLAIN FIRST (so the huge trial cannot
-        # recycle the plain trial's just-freed warm frames and look
-        # artificially slow on a healthy host): big enough that the
-        # cold-frame zeroing rate (what a multi-GB ingest pays) shows
-        # through the kernel's warm-frame recycling most of the time,
-        # small enough to cost ~50 ms on healthy hardware.  A warm-frame
-        # false negative just keeps numpy's default — no worse than not
-        # probing.  Measured on this VM class: 64 MB huge-touch 1.7 s vs
-        # plain 0.15 s (11x); healthy hosts measure huge <= plain.
-        plain = touch(False)
-        if touch(True) > 2.5 * plain:
-            os.environ["NUMPY_MADVISE_HUGEPAGE"] = "0"
-    except Exception:
-        pass  # probe is best-effort; numpy's default stands
-
-
-_tune_hugepages()
-del _tune_hugepages

@@ -40,7 +40,7 @@ class NativeUnavailable(RuntimeError):
 # process (seconds + volumes from duet_bam_stats, plus the getrusage page
 # -fault delta across the decode) — the pipeline copies it into the
 # metrics ingest block so the biggest cost center in every production
-# artifact stops being a black box (VERDICT r4 weak #2).  Written by the
+# artifact stops being a black box.  Written by the
 # stream generator's cleanup; single pipeline ingest per process, so a
 # module global suffices (multi-threaded decoders would need a handle-
 # scoped return instead).
@@ -93,8 +93,7 @@ def _collect_stats(lib, h, ru: "_RuWindow") -> dict:
         # user vs kernel CPU seconds across the decode calls (all
         # threads): when stime rivals utime and decode wall ~=
         # (utime+stime)/n_cores, the decode is paging/zeroing-bound, not
-        # compute-bound — the distinction the VERDICT r4 ingest ask needs
-        # the artifact itself to make
+        # compute-bound, and the artifact itself records which
         "cpu_user_s": round(ru.utime, 2),
         "cpu_kernel_s": round(ru.stime, 2),
     }

@@ -1,13 +1,14 @@
-"""Neural pileup SNP caller — the MXU counterpart of Clair3's pileup network.
+"""Neural pileup SNP caller — the device counterpart of Clair3's pileup
+network.
 
 The reference's SNP stage is Clair3 in pileup-only mode (reference
 src/duet/snp_calling.py:13-17), i.e. a *neural network* over windowed pileup
-count tensors, not a frequency rule.  This module provides the TPU-native
+count tensors, not a frequency rule.  This module provides the framework's
 equivalent as an opt-in alternative to the exact-rational counting caller in
 models/snp_caller.py: a small MLP over a 9-site pileup window, trained with
 optax on the built-in simulator, with inference as one jitted f32 matmul
-stack (MXU-friendly: the whole candidate set is classified in a single
-batched forward pass).
+stack (the whole candidate set is classified in a single batched forward
+pass).
 
 Classes: 0 = non-variant, 1 = het, 2 = hom-alt.  The alt allele itself stays
 the argmax non-reference allele, as in the counting caller, so downstream
@@ -106,12 +107,17 @@ def apply_np(params, x: np.ndarray) -> np.ndarray:
 
 
 def apply(params, x):
-    """JAX forward (f32 matmuls — a single fused MXU stack under jit)."""
+    """JAX forward: f32 matmuls at HIGHEST precision, so a GPU cannot run
+    them in TF32 and drift from apply_np and the f32 training."""
+    import jax
     import jax.numpy as jnp
 
-    h = jnp.maximum(x @ params["W1"] + params["b1"], 0.0)
-    h = jnp.maximum(h @ params["W2"] + params["b2"], 0.0)
-    return h @ params["W3"] + params["b3"]
+    hi = jax.lax.Precision.HIGHEST
+    h = jnp.maximum(jnp.matmul(x, params["W1"], precision=hi) + params["b1"],
+                    0.0)
+    h = jnp.maximum(jnp.matmul(h, params["W2"], precision=hi) + params["b2"],
+                    0.0)
+    return jnp.matmul(h, params["W3"], precision=hi) + params["b3"]
 
 
 _cached: dict[str, dict[str, np.ndarray]] = {}

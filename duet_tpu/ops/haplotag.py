@@ -1,10 +1,10 @@
 """K1 — device haplotag scoring + phasing power iteration.
 
-The TPU-native replacement for WhatsHap's per-read haplotype assignment
+The device replacement for WhatsHap's per-read haplotype assignment
 (reference snp_phasing.py:27-29): reads and phased het sites of a genomic
 window form a dense (R x S) signed allele matrix A (+1 read shows alt,
 -1 shows ref, 0 not covered), quality-weighted.  Everything the stage needs
-is then matmuls — exactly what the MXU wants:
+is then matmuls:
 
   read scores   signed = (A*W) @ phase        (R,S)@(S,)  -> hap = sign
                 total  = |A*W| @ |phase|                  -> PC from margin
@@ -118,10 +118,10 @@ def phase_and_tag(alleles, weights, phase0, block_onehot, sweeps: int = 2):
 
 @partial(jax.jit, static_argnames=("n_tasks", "n_blocks"))
 def phase_and_tag_batch(alleles, weights, rhs, n_tasks: int, n_blocks: int):
-    """XLA twin of pallas_haplotag.haplotag_score_batch_pallas: `n_tasks`
-    stacked (TILE_R, S) scoring chunks in one jitted call (batched
-    dot_general — identical bf16-operand / f32-accumulate arithmetic, so
-    results are bit-equal; every product is an exact small integer).
+    """`n_tasks` stacked (R, S) scoring chunks (phase_and_tag's final
+    scoring, sweeps=0) in one jitted call: a batched dot_general with
+    bf16 operands and f32 accumulation, so results equal phase_and_tag's
+    task by task (every product is an exact small integer).
 
     alleles (n_tasks*R, S) int8; weights same shape (any float, cast to
     bf16); rhs (n_tasks*S, K) float — per-task [phase | informative |

@@ -8,7 +8,8 @@ is the standard JAX recipe:
      count, process id — or nothing under a supported cluster env, where
      jax.distributed auto-detects)
   2. `global_mesh(sp=...)` builds a (dp, sp) mesh over ALL devices of the
-     job; within a host the dp axis rides ICI, across hosts DCN
+     job; within a host the collectives ride NVLink, across hosts the
+     network
   3. each host ingests ITS OWN shard of read batches
      (`host_read_batches`), the phased-SNP index is replicated, and
      `phase_and_tag_sharded` runs under the global mesh — XLA inserts the

@@ -13,7 +13,8 @@ Here scaling is a first-class device-mesh design:
 
   collectives  read scores  : psum over "sp"  (row matvec partials)
                site votes   : psum over "dp"  (column matvec partials)
-  both ride ICI within a slice; nothing touches the host between sweeps.
+  both ride the device interconnect; nothing touches the host between
+  sweeps.
 
 The per-shard math is identical to the single-chip kernel
 (duet_tpu.ops.haplotag.phase_and_tag); tests pin sharded == single-device

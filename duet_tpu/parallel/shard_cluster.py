@@ -5,7 +5,7 @@ position-sorted signature array of one contig is split into contiguous
 COORDINATE RANGES along the mesh's "sp" axis, one range per device.  Chain
 linkage only ever looks at adjacent signatures, so the sole cross-device
 dependency is each range's first element against its left neighbor's last —
-a one-element halo exchanged with `jax.lax.ppermute` over ICI.  Segment ids
+a one-element halo exchanged with `jax.lax.ppermute`.  Segment ids
 are then globalized with an exclusive scan of per-shard break counts
 (all_gather of one scalar per device), and the per-cluster statistics run
 through the SAME segment-reduction core as the single-device kernel

@@ -1,8 +1,7 @@
 """Coordinate-sharded SNP pileup over a device mesh.
 
-The SNP stage was the last single-device stage (VERDICT r4 weak #5): the
-mesh covered haplotag scoring and clustering while the largest host stage
-in every production artifact ran on one device.  Pileup counting is
+The mesh covers haplotag scoring and clustering, and with this module the
+SNP stage too.  Pileup counting is
 POSITIONAL — observation (pos, base) pairs in disjoint coordinate ranges
 cannot interact — so the contig's coordinate axis shards cleanly over the
 mesh's "sp" axis: each device owns one contiguous reference window, ops
@@ -111,7 +110,14 @@ def call_snps_sharded(mesh, contig: str, cr, ref_codes: np.ndarray, cfg,
         # per-shard window above the single-device cap: the (Lw, 4)
         # count image alone would be multi-GB per device.  Keep the
         # bit-identical host caller rather than growing the kernel's
-        # shape family (same trade _device_window makes).
+        # shape family (same trade _device_window makes); iterating
+        # windows per shard is ROADMAP 2.1.
+        from duet_tpu.utils.logging import get_logger
+
+        get_logger().warning(
+            "sharded pileup: %s needs a %d bp window per %s shard, above "
+            "DEVICE_PILEUP_WINDOW=%d bp; counting the whole contig on the "
+            "host", contig, Lw, axis, DEVICE_PILEUP_WINDOW)
         return host_fallback()
     max_sites = _pow2(max(Lw // DEVICE_MAX_SITE_DENSITY, 256))
     rats = (*_as_rational(cfg.min_af), *_as_rational(cfg.hom_af))

@@ -42,7 +42,7 @@ class SimConfig:
     sub_error: float = 0.02
     indel_error: float = 0.01  # small 1-3bp sequencing indels
     qual_mean: int = 22
-    # ONT error SHAPE (round-5, VERDICT r4 next #6): real nanopore error is
+    # ONT error SHAPE: real nanopore error is
     # not uniform — it concentrates in homopolymers (dominant mode: +-1
     # base at a run) and correlates WITHIN a read (bad pores/strands yield
     # whole bad reads).  A uniform model is the easiest regime for the

@@ -1,4 +1,4 @@
-"""Truth-labeled junction diagnostics (VERDICT r2 #4).
+"""Truth-labeled junction diagnostics.
 
 Weak-junction splitting needs a discriminator that separates REAL switch
 errors (split here: phasing precision up) from genuinely weak but CORRECT

@@ -1,4 +1,4 @@
-"""End-to-end junction-splitting rule comparison (VERDICT r2 #4).
+"""End-to-end junction-splitting rule comparison.
 
 Runs the full pipeline + evaluation across coverages x seeds for each
 weak-junction splitting rule and reports mean calling / genotyping /

@@ -1,4 +1,4 @@
-"""PC-scale sensitivity sweep (VERDICT r1 weak #5).
+"""PC-scale sensitivity sweep.
 
 The framework's phasing confidence is PC = clip(round(PC_PER_MARGIN *
 quality-weighted margin), 1, 8100) (models/snp_phaser.py).  The decision

@@ -1,4 +1,4 @@
-"""Train the learned decision layer on simulation truth (VERDICT r2 #9).
+"""Train the learned decision layer on simulation truth.
 
 Collects (feature, truth-class) rows from full pipeline runs across
 coverages x seeds, fits a small CART (sklearn at TRAIN time only; the
@@ -32,8 +32,8 @@ from duet_tpu.models.decision_model import (
 # and ARTIFACT cells — spurious SV-sized insertions (random per-read +
 # recurrent hotspots, sim.SimConfig artifact_*) are what real data has and
 # what generates FALSE candidate calls, i.e. class-0 training rows, without
-# which the tree never learns to filter (VERDICT r3 weak #1: the previous
-# training callsets contained zero false positives).  Candidate collection
+# which the tree never learns to filter (a callset without them has zero
+# false positives to learn from).  Candidate collection
 # runs at min_support_read=1 so single-read artifacts reach the decision
 # stage as labeled rows.
 TRAIN = [(cov, seed, 0.02, False) for cov in (8, 10, 12, 14, 20)
@@ -269,7 +269,7 @@ def main(argv=None) -> int:
     model = export_sklearn_tree(clf)
     depth, feats_used, leaf_classes = tree_stats(model["tree"])
     if not quick:
-        # ship-bar (VERDICT r3 next #3): non-degenerate tree with a
+        # ship-bar: non-degenerate tree with a
         # reachable class-0 leaf and at least one magnitude/count feature
         magnitude = {FEATURE_NAMES.index(f) for f in
                      ("totsc_ratio", "onehap_totsc", "hap_avgsc_diff",
@@ -294,7 +294,7 @@ def main(argv=None) -> int:
                      "verbatim": e2e_scores(d, "verbatim"),
                      "learned": e2e_scores(d, "learned",
                                            model_path=out_path)})
-    # no-regression ship gate (VERDICT r4 next #5): per (error, artifact)
+    # no-regression ship gate: per (error, artifact)
     # holdout group, mean learned calling F1 must stay within 0.01 of
     # verbatim AND mean precision must not regress on any axis — the
     # round-4 tree traded 0.046 calling recall at 6% error and shipped;

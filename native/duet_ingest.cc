@@ -54,7 +54,59 @@
 #include <sys/mman.h>
 #endif
 
+#if __has_include(<libdeflate.h>)
 #include <libdeflate.h>
+
+// libdeflate: ~2-3x faster than zlib's inflate for BGZF members (gzip
+// wrapper handled natively).  One Inflater per thread, reused.
+class Inflater {
+ public:
+  Inflater() : d_(libdeflate_alloc_decompressor()) {}
+  ~Inflater() { if (d_) libdeflate_free_decompressor(d_); }
+  Inflater(const Inflater&) = delete;
+  Inflater& operator=(const Inflater&) = delete;
+  bool ok() const { return d_ != nullptr; }
+  bool gunzip(const uint8_t* src, size_t src_size, uint8_t* dst,
+              size_t dst_size) {
+    size_t actual = 0;
+    auto rc = libdeflate_gzip_decompress(d_, src, src_size, dst, dst_size,
+                                         &actual);
+    return rc == LIBDEFLATE_SUCCESS && actual == dst_size;
+  }
+
+ private:
+  libdeflate_decompressor* d_;
+};
+#else
+#include <zlib.h>
+
+// zlib fallback for hosts without libdeflate's headers: the same bytes
+// (gzip wrapper, CRC32 and ISIZE checked), slower inflate.
+class Inflater {
+ public:
+  Inflater() {
+    std::memset(&z_, 0, sizeof z_);
+    ok_ = inflateInit2(&z_, 16 + MAX_WBITS) == Z_OK;
+  }
+  ~Inflater() { if (ok_) inflateEnd(&z_); }
+  Inflater(const Inflater&) = delete;
+  Inflater& operator=(const Inflater&) = delete;
+  bool ok() const { return ok_; }
+  bool gunzip(const uint8_t* src, size_t src_size, uint8_t* dst,
+              size_t dst_size) {
+    if (inflateReset(&z_) != Z_OK) return false;
+    z_.next_in = const_cast<Bytef*>(src);
+    z_.avail_in = static_cast<uInt>(src_size);
+    z_.next_out = dst;
+    z_.avail_out = static_cast<uInt>(dst_size);
+    return inflate(&z_, Z_FINISH) == Z_STREAM_END && z_.avail_out == 0;
+  }
+
+ private:
+  z_stream z_;
+  bool ok_ = false;
+};
+#endif
 
 namespace {
 
@@ -94,9 +146,7 @@ struct Columns {
 // resize() must not zero-fill (the inflate threads overwrite every new
 // byte, and memset's first-touch pass over a multi-GB rolling window is
 // pure kernel time), and growth via realloc lets glibc mremap large
-// windows instead of copying them.  The vector version spent ~100 CPU
-// seconds in kernel page handling decoding a 2 GB BAM on this VM (round-4
-// measurement: wall 87.6s, user 16.5s, sys 105s).
+// windows instead of copying them.
 struct Buf {
   uint8_t* p = nullptr;
   size_t n = 0;
@@ -114,9 +164,7 @@ struct Buf {
 #if defined(__linux__)
   // mmap/mremap-backed on Linux: page-aligned (so MADV_HUGEPAGE actually
   // applies — a malloc pointer is offset by the chunk header and the
-  // advice EINVALs), and growth remaps instead of copying.  This VM
-  // handles a 4 KB fault in ~60 us (~50x slow), so 2 MB pages are the
-  // difference between ~50 s and ~1 s of kernel time per decoded GB.
+  // advice EINVALs), and growth remaps instead of copying.
   void resize(size_t m) {
     if (m > cap) {
       size_t c = cap ? cap * 2 : (8u << 20);
@@ -127,11 +175,9 @@ struct Buf {
       if (q == MAP_FAILED) { oom = true; return; }
       p = static_cast<uint8_t*>(q);
       cap = c;
-      // NOT madvise(MADV_HUGEPAGE): measured on this VM it cut minor
-      // faults 878k -> 16k yet RAISED wall time (31 -> 42 s) — the cost
-      // is the kernel ZEROING fresh anonymous pages, not the fault
-      // count, and 2 MB synchronous zeroing stalls the inflate threads
-      // in bigger chunks.  4 KB pages win here.
+      // NOT madvise(MADV_HUGEPAGE): fewer faults, but the kernel's
+      // synchronous zeroing of 2 MB pages stalls the inflate threads in
+      // bigger chunks.
     }
     n = m;
   }
@@ -198,7 +244,7 @@ struct Reader {
 
   // interior perf counters (duet_bam_stats): the ingest stage was the
   // largest single cost in every production artifact with an opaque
-  // interior (VERDICT r4 weak #2).  Wall seconds per phase + byte/count
+  // interior.  Wall seconds per phase + byte/count
   // volumes, accumulated over the handle's lifetime.
   double t_fread = 0;     // fread of compressed bytes
   double t_inflate = 0;   // BGZF member inflate (thread pool, wall)
@@ -213,15 +259,10 @@ struct Reader {
   ~Reader() { if (f) std::fclose(f); }
 };
 
-// libdeflate: ~2-3x faster than zlib's inflate for BGZF members (gzip
-// wrapper handled natively); `d` is a per-thread reusable decompressor.
-bool inflate_block(libdeflate_decompressor* d, const uint8_t* src,
-                   size_t src_size, uint8_t* dst, size_t dst_size) {
+bool inflate_block(Inflater* d, const uint8_t* src, size_t src_size,
+                   uint8_t* dst, size_t dst_size) {
   if (dst_size == 0) return true;
-  size_t actual = 0;
-  auto rc = libdeflate_gzip_decompress(d, src, src_size, dst, dst_size,
-                                       &actual);
-  return rc == LIBDEFLATE_SUCCESS && actual == dst_size;
+  return d->gunzip(src, src_size, dst, dst_size);
 }
 
 // One complete BGZF member at comp[off..]: returns BSIZE via *bsize and
@@ -303,17 +344,16 @@ bool refill(Reader* rd) {
       std::vector<std::thread> pool;
       for (int t = 0; t < nt; ++t) {
         pool.emplace_back([&, t]() {
-          libdeflate_decompressor* d = libdeflate_alloc_decompressor();
-          if (!d) { ok[t] = 0; return; }
+          Inflater d;
+          if (!d.ok()) { ok[t] = 0; return; }
           for (size_t i = t; i < members.size(); i += nt) {
             const auto& m = members[i];
-            if (!inflate_block(d, rd->comp.data() + m.in_off, m.in_size,
+            if (!inflate_block(&d, rd->comp.data() + m.in_off, m.in_size,
                                rd->raw.data() + m.out_off, m.out_size)) {
               ok[t] = 0;
               break;
             }
           }
-          libdeflate_free_decompressor(d);
         });
       }
       for (auto& th : pool) th.join();
@@ -698,8 +738,7 @@ void duet_bam_fill(void* h,
   rd->t_fill += now_s() - t0;
 }
 
-// Interior cost split of the decode so far (VERDICT r4 weak #2 asked for
-// exactly this: "nothing records where the remaining 60s goes").  out9:
+// Interior cost split of the decode so far.  out9:
 // [fread_s, inflate_s, scan_s, size_s, fill_s,
 //  bytes_compressed, bytes_inflated, n_members, n_refills]
 void duet_bam_stats(void* h, double* out9) {

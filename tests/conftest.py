@@ -1,27 +1,18 @@
-"""Test configuration: force an 8-virtual-device CPU platform before JAX
-initializes, so sharding/collective paths are exercised without TPU hardware
-(SURVEY.md §4 implication (d))."""
+"""Test configuration: tests run on the CPU with 8 virtual devices, so the
+sharding and collective paths run without an accelerator.  With
+DUET_TPU_TEST_REAL=1 they run on the machine's own backend instead, which
+the `chip` tests need (`DUET_TPU_TEST_REAL=1 python -m pytest -m chip`)."""
 
 import os
 
-flags = os.environ.get("XLA_FLAGS", "")
-if "xla_force_host_platform_device_count" not in flags:
-    os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8"
-    ).strip()
-
-# Force CPU even when the environment pre-wires a TPU platform: tests must
-# be hermetic and fast. The env var alone is NOT enough — a site plugin may
-# set jax.config.jax_platforms directly at interpreter start, and config
-# beats env — so override at the config level before any backend init.
-# Set DUET_TPU_TEST_REAL=1 to run against real hardware instead.
 if not os.environ.get("DUET_TPU_TEST_REAL"):
     os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=8"
+        ).strip()
 
-    jax.config.update("jax_platforms", "cpu")
-
-import numpy as np
 import pytest
 
 
@@ -35,3 +26,16 @@ def sim_dataset(tmp_path_factory):
                     read_len_mean=9_000)
     truth = simulate_dataset(str(out), cfg)
     return str(out), cfg, truth
+
+
+@pytest.fixture
+def gpu():
+    """The GPU device for a `chip` test; skips where JAX has none.  Decided
+    here, at run time, so every xdist worker collects the same tests."""
+    import jax
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU (JAX's first device is {dev.platform}); "
+                    "run with DUET_TPU_TEST_REAL=1 on a GPU host")
+    return dev

@@ -113,7 +113,7 @@ def test_eval_scores_bnd_records(tra_demo):
 def test_per_type_breakdown_includes_bnd(tra_demo, tmp_path):
     """evaluate_files reports a per-SVTYPE accuracy table; with --phase-bnd
     the BND row carries calling AND phasing numbers (the framework
-    extension over the reference's SVLEN drop, VERDICT r2 #8)."""
+    extension over the reference's SVLEN drop)."""
     d, truth = tra_demo
     out = str(tmp_path / "o")
     run_pipeline(PipelineConfig(

@@ -102,7 +102,7 @@ def _row_reaching_leaf(model, target):
 
 
 def test_shipped_tree_is_not_degenerate():
-    """Ship-bar (VERDICT r3 next #3): the production tree has depth >= 2,
+    """Ship-bar: the production tree has depth >= 2,
     a REACHABLE class-0 (filtered) leaf, and at least one magnitude/count
     feature binding — a retrain that regresses to a stump fails here."""
     from duet_tpu.tools.train_decision import tree_stats

@@ -1,5 +1,5 @@
 """Hostile-format fixtures: what REAL tools emit and the simulator never
-does (VERDICT r3 next #7).  Every BAM case is exercised against BOTH the
+does.  Every BAM case is exercised against BOTH the
 native C++ decoder and the Python reader (column parity + observation-
 stream parity); the VCF cases exercise the caller-format dispatch the
 reference defines (read_file.py:40-76) and the resume/phase-only surfaces.

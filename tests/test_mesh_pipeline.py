@@ -58,7 +58,7 @@ def test_mesh_pipeline_matches_single_device(sim_dataset, tmp_path, mesh):
     assert metrics["backends"]["haplotag"] == "mesh"
     assert metrics["backends"]["sv_cluster"] == "mesh"
     # round 5: the pileup stage shards over sp too — no single-device stage
-    # remains (VERDICT r4 weak #5)
+    # remains
     assert metrics["backends"]["snp_pileup"] == "mesh"
 
 

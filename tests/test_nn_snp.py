@@ -172,3 +172,31 @@ def test_pipeline_auto_model_dispatch(tmp_path):
     counts_vcf = run_pipeline(PipelineConfig(
         output=str(tmp_path / "o_counts"), snp_model="counts", **base))
     assert open(auto_vcf, "rb").read() == open(counts_vcf, "rb").read()
+
+
+def test_forward_pins_highest_precision():
+    """All three products of the jax forward carry Precision.HIGHEST, so a
+    GPU cannot run them in TF32 and drift from apply_np."""
+    import jax
+
+    params = nn_snp.init_params(seed=0)
+    x = np.zeros((8, nn_snp.N_FEATURES), np.float32)
+    jaxpr = jax.make_jaxpr(nn_snp.apply)(params, x)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 3
+    for e in dots:
+        assert e.params["precision"] == (jax.lax.Precision.HIGHEST,
+                                         jax.lax.Precision.HIGHEST), e.params
+
+
+@pytest.mark.chip
+def test_forward_parity_on_gpu(gpu):
+    import jax
+
+    params = nn_snp.load_params()
+    x = np.random.default_rng(2).random((1 << 16, nn_snp.N_FEATURES),
+                                        dtype=np.float32)
+    got = np.asarray(jax.jit(nn_snp.apply)(params, jax.device_put(x, gpu)))
+    want = nn_snp.apply_np(params, x)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert (got.argmax(axis=1) == want.argmax(axis=1)).all()

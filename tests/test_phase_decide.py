@@ -68,7 +68,7 @@ def test_near_threshold_host_device_parity():
     2400 (regime 1 gate), totsc_ratio exactly on 9.72 — plus one-unit
     perturbations on each side.  The auto gate routes big callsets to the
     device, so any latent divergence here would silently flip production
-    outputs (ADVICE r2)."""
+    outputs."""
     from duet_tpu.io.vcf import SVRecord
 
     def mk(svread, refread, reads, n_names=None):
